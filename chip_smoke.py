@@ -7,28 +7,31 @@ Phases, each raising on failure (any failure exits non-zero):
 
 1. kernels — build every hand-written kernel from ``src/repro_torch``'s
    sources (one ``nvcc`` per source, all started together), then hold each
-   against its plain PyTorch version on the card: K1 (flash-attention
-   forward) over the shape sweep of ``tests/test_kernels.py`` in fp32
-   (tol 1e-4) and bf16 (tol 2e-2), then at the main path's shape.  Each
-   case is checked elementwise against the plain version on the same
-   inputs, and by its relative norm error ||got - want|| / ||want||
+   against its plain PyTorch version on the card over the shape sweeps of
+   ``tests/test_kernels.py`` in fp32 (tol 1e-4) and bf16 (tol 2e-2), then
+   at the main path's shape: K1 (flash-attention forward), K2 (the Mamba2
+   SSD scan) and K3 (the RWKV6 WKV recurrence), K2 and K3 also across a
+   sequence cut in two through ``initial_state`` and K3 under decay scale
+   8.  Each case is checked elementwise against the plain version on the
+   same inputs, and by its relative norm error ||got - want|| / ||want||
    against the plain version computed in fp32 on the same values (limit
    1e-5 for fp32, 5e-3 for bf16, about two bf16 roundings), so a kernel
    wrong by a few percent where |out| is small cannot pass.  At the main
-   path's shape
-   the kernel, its plain version and one PyTorch library call are timed
-   with CUDA events and the least time the card could take is computed.
-2. path parity — one ``make_fed_step`` on the tinyllama smoke config
-   (fp32) on the card and on the CPU from the same params and batches:
-   losses and new params agree within 1e-4, and K1 was launched; then
-   the port's ``sim`` with its default flags on the card and on the CPU:
-   identical host traces, losses within 1e-4.
-3. slice — the ``RoundDriver`` (fedpairing, vmapped engine, paper pairing
-   and split, mean aggregation) on tinyllama-1.1b at full width, bf16
-   compute with fp32 params, depth cut to 4 layers; K1's launch count is
-   read from this run alone.
-4. breakdown — one more fed step of the slice under ``torch.profiler``:
-   device time by kernel group and the device's idle share.
+   path's shape each kernel and its plain version are timed with CUDA
+   events, K1 also beside one PyTorch library call, and the least time the
+   card could take is computed from the shapes.
+2. path parity — one ``make_fed_step`` on the tinyllama, rwkv6 and zamba2
+   smoke configs (fp32) on the card and on the CPU from the same params
+   and batches: losses and new params agree within 1e-4, and the path's
+   kernels were launched; then the port's ``sim`` with its default flags
+   on the card and on the CPU: identical host traces, losses within 1e-4.
+3. slices — the ``RoundDriver`` (fedpairing, vmapped engine, paper pairing
+   and split, mean aggregation) at full width, bf16 compute with fp32
+   params, depth cut, on tinyllama-1.1b, rwkv6-1.6b and zamba2-1.2b in
+   turn; each kernel's launch count is read from each slice's run alone.
+4. breakdown — after each slice, one more fed step of it under
+   ``torch.profiler``: device time by kernel group and the device's idle
+   share.
 
 The last two lines are the ``kernels`` JSON summary and the result line.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -36,6 +39,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -61,8 +65,36 @@ ATTN_SWEEP = [
     (2, 64, 4, 4, 32, True, 16),
 ]
 MAIN_SHAPE = dict(B=8, S=1024, Hq=32, Hkv=4, d=64)   # N=4 clients x batch 2
-SLICE_LAYERS = 4
+# tests/test_kernels.py:57-63: (B, S, H, P, N, chunk)
+SSD_SWEEP = [
+    (2, 128, 4, 64, 32, 32),
+    (1, 256, 2, 32, 64, 64),
+    (2, 64, 8, 64, 16, 16),
+    (1, 96, 2, 32, 32, 32),
+]
+# tests/test_kernels.py:112-118: (B, S, H, N, M, chunk, decay_scale)
+WKV_SWEEP = [
+    (2, 128, 4, 32, 32, 32, 1.0),
+    (1, 256, 2, 64, 64, 64, 1.0),
+    (2, 64, 4, 32, 32, 16, 8.0),
+    (1, 64, 2, 16, 16, 64, 1.0),
+]
+# the main path's shapes: N=4 clients x batch 2 folded, seq 1024
+SSD_MAIN = dict(B=8, S=1024, H=64, P=64, N=64, chunk=64)     # zamba2-1.2b
+WKV_MAIN = dict(B=8, S=1024, H=32, N=64, M=64, chunk=16)     # rwkv6-1.6b
 SLICE = dict(clients=4, batch=2, seq=1024, rounds=2, batches_per_round=2)
+# (arch, depth cut, why, expected launches per fed step by kernel)
+SLICES = [
+    ("tinyllama-1.1b", 4, "keeps the 4 stacked replicas near 21 GiB",
+     {"K1": 4}),
+    ("rwkv6-1.6b", 4, "as the tinyllama slice; the 65536-row vocab keeps "
+     "the embedding and head at full size", {"K3": 4}),
+    ("zamba2-1.2b", 7, "shared_attn_every 6 unchanged, so the shared block "
+     "runs twice and its per-invocation out_proj[1] is exercised",
+     {"K2": 7, "K1": 2}),
+]
+SMOKE_PATHS = {"tinyllama-1.1b": ("K1",), "rwkv6-1.6b": ("K3",),
+               "zamba2-1.2b": ("K2", "K1")}
 
 
 def log(msg: str) -> None:
@@ -114,6 +146,14 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(flops: float, nbytes: float):
+    """(least ms, what bounds it): the larger of the FLOPs over the bf16
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def attention_work(B, S, L, Hq, Hkv, d, causal, window, itemsize):
     """(FLOPs, bytes) attention needs on these inputs: 4*d FLOPs per
     visible (query, key) pair and head (QK^T and PV); q, k, v read once,
@@ -128,30 +168,87 @@ def attention_work(B, S, L, Hq, Hkv, d, causal, window, itemsize):
     return flops, nbytes
 
 
-def check_k1(torch, fa, ref, q, k, v, causal, window, label):
-    """K1 against its plain version on the same inputs: elementwise at the
-    dtype's tolerance, and by relative norm error against the plain
-    version in fp32 on the same values.  Returns (max_abs_err, rel_err)."""
-    tol, rel_tol = ((1e-4, 1e-5) if q.dtype == torch.float32
+def ssd_work(B, S, H, P, N, itemsize):
+    """(FLOPs, bytes) of the SSD scan: 4*P*N FLOPs per step and head (the
+    recurrence's state update and output, one multiply-add per state
+    element each); x, b, c read once in the compute dtype, log_decay in
+    fp32, y written once in the compute dtype, the final state in fp32."""
+    flops = 4 * P * N * B * S * H
+    nbytes = (itemsize * (2 * B * S * H * P + 2 * B * S * N)
+              + 4 * (B * S * H + B * H * P * N))
+    return flops, nbytes
+
+
+def wkv_work(B, S, H, N, M, U, itemsize):
+    """(FLOPs, bytes) of WKV6: 4*N*M FLOPs per step and head (state update
+    and output, one multiply-add per state element each); r, k, v read
+    once in the compute dtype, log_w and u in fp32, out written once in
+    the compute dtype, the final state in fp32."""
+    flops = 4 * N * M * B * S * H
+    nbytes = (itemsize * (2 * B * S * H * N + 2 * B * S * H * M)
+              + 4 * (B * S * H * N + U * H * N + B * H * N * M))
+    return flops, nbytes
+
+
+def check_case(torch, kid, label, got, want, want32, state=None):
+    """A kernel's output against its plain version on the same inputs
+    (``want``), elementwise at the dtype's tolerance, and against the plain
+    version computed in fp32 on the same values (``want32``) by relative
+    norm error; ``state`` = (got, want, tol) compares the fp32 final
+    states.  Returns (max_abs_err, rel_err)."""
+    tol, rel_tol = ((1e-4, 1e-5) if got.dtype == torch.float32
                     else (2e-2, 5e-3))
-    got = fa.launch(q, k, v, causal=causal, sliding_window=window).float()
-    want = ref.attention_ref(q, k, v, causal=causal,
-                             sliding_window=window).float()
-    want32 = ref.attention_ref(q.float(), k.float(), v.float(),
-                               causal=causal, sliding_window=window)
     torch.cuda.synchronize()
+    got, want, want32 = got.float(), want.float(), want32.float()
     err = (got - want).abs().max().item()
     rel = ((got - want32).norm() / want32.norm()).item()
-    ok = (torch.allclose(got, want, rtol=tol, atol=tol) and rel <= rel_tol)
-    log(f"  K1 {label}: max_abs_err={err:.3e} (tol {tol}) "
-        f"rel_err={rel:.3e} (limit {rel_tol}) {'ok' if ok else 'FAIL'}")
+    ok = torch.allclose(got, want, rtol=tol, atol=tol) and rel <= rel_tol
+    extra = ""
+    if state is not None:
+        sg, sw, stol = state
+        serr = (sg.float() - sw.float()).abs().max().item()
+        ok = ok and torch.allclose(sg.float(), sw.float(), rtol=stol,
+                                   atol=stol)
+        extra = f" state_err={serr:.3e} (tol {stol})"
+    log(f"  {kid} {label}: max_abs_err={err:.3e} (tol {tol}) "
+        f"rel_err={rel:.3e} (limit {rel_tol}){extra} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"K1 disagrees with its plain version at "
+        raise AssertionError(f"{kid} disagrees with its plain version at "
                              f"{label}: max_abs_err {err}, rel_err {rel}")
     return err, rel
 
 
-def kernel_phase(torch, fa, ref):
+def check_k1(torch, fa, ref, q, k, v, causal, window, label):
+    got = fa.launch(q, k, v, causal=causal, sliding_window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, sliding_window=window)
+    want32 = ref.attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal, sliding_window=window)
+    return check_case(torch, "K1", label, got, want, want32)
+
+
+def timed_record(torch, kid, name, source, replaces, err, rel, kernel_fn,
+                 plain_fn, work, shape_note, library_ms=None):
+    """Time the kernel and its plain version at the main path's shape and
+    return the kernel's line of the ``kernels`` summary."""
+    ms = time_ms(kernel_fn)
+    plain_ms = time_ms(plain_fn)
+    flops, nbytes = work
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"  {kid} main shape {shape_note}: {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB")
+    log(f"  {kid} ms={ms!r} plain_ms={plain_ms!r} library_ms={library_ms!r} "
+        f"bound_ms={bound_ms!r} ({bound_by}); kernel at "
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    return {"name": name, "route": "cuda",
+            "source": source,
+            "replaces": replaces, "max_abs_err": err, "rel_err": rel,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def k1_phase(torch, fa, ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -172,8 +269,6 @@ def kernel_phase(torch, fa, ref):
     err, rel = check_k1(torch, fa, ref, q, k, v, True, 0,
                         "main-path shape bf16 causal")
     want = ref.attention_ref(q, k, v, causal=True)
-    ms = time_ms(lambda: fa.launch(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
     library_ms = None
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))    # (B, H, S, d)
@@ -187,32 +282,139 @@ def kernel_phase(torch, fa, ref):
             f"{lib_err.item():.3e}")
         library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
                                           enable_gqa=True))
-    flops, nbytes = attention_work(m["B"], m["S"], m["S"], m["Hq"], m["Hkv"],
-                                   m["d"], True, 0, 2)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"  K1 main shape q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
-        f"causal: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
-    log(f"  K1 ms={ms!r} plain_ms={plain_ms!r} library_ms={library_ms!r} "
-        f"bound_ms={bound_ms!r} ({bound_by}); kernel at "
-        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:81",
-            "max_abs_err": err, "rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return timed_record(
+        torch, "K1", "flash_attention_fwd",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:81", err, rel,
+        lambda: fa.launch(q, k, v, causal=True),
+        lambda: ref.attention_ref(q, k, v, causal=True),
+        attention_work(m["B"], m["S"], m["S"], m["Hq"], m["Hkv"], m["d"],
+                       True, 0, 2),
+        f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+        library_ms=library_ms)
 
 
-def path_parity_phase(torch, fa):
+def k2_phase(torch, ssd_scan):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    plain = ssd_scan.ssd_plain
+
+    def inputs(B, S, H, P, N, dtype):
+        x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+        ld = -torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=gen, device=dev))
+        b = (torch.randn((B, S, N), generator=gen, device=dev) * 0.5).to(dtype)
+        c = (torch.randn((B, S, N), generator=gen, device=dev) * 0.5).to(dtype)
+        return x, ld, b, c
+
+    def case(label, x, ld, b, c, chunk):
+        y, sfin = ssd_scan.launch(x, ld, b, c)
+        want, swant = plain(x, ld, b, c, chunk=chunk)
+        want32, _ = plain(x.float(), ld, b.float(), c.float(), chunk=chunk)
+        stol = 1e-4 if x.dtype == torch.float32 else 1e-2
+        return check_case(torch, "K2", label, y, want, want32,
+                          state=(sfin, swant, stol))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, P, N, chunk in SSD_SWEEP:
+            case(f"{str(dtype)[6:]} B={B} S={S} H={H} P={P} N={N} "
+                 f"chunk={chunk}", *inputs(B, S, H, P, N, dtype), chunk)
+
+    # a sequence cut in two through initial_state equals one pass
+    x, ld, b, c = inputs(1, 96, 2, 32, 16, torch.float32)
+    cut = 40
+    y1, s1 = ssd_scan.launch(*(t[:, :cut].contiguous() for t in (x, ld, b, c)))
+    y2, s2 = ssd_scan.launch(*(t[:, cut:].contiguous() for t in (x, ld, b, c)),
+                             initial_state=s1)
+    want, swant = plain(x, ld, b, c, chunk=32)
+    check_case(torch, "K2", f"fp32 S=96 cut at {cut} through initial_state",
+               torch.cat([y1, y2], dim=1), want, want,
+               state=(s2, swant, 1e-4))
+
+    m = SSD_MAIN
+    x, ld, b, c = inputs(m["B"], m["S"], m["H"], m["P"], m["N"],
+                         torch.bfloat16)
+    err, rel = case("main-path shape bf16", x, ld, b, c, m["chunk"])
+    return timed_record(
+        torch, "K2", "ssd_scan_fwd",
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:74",
+        err, rel, lambda: ssd_scan.launch(x, ld, b, c),
+        lambda: plain(x, ld, b, c, chunk=m["chunk"]),
+        ssd_work(m["B"], m["S"], m["H"], m["P"], m["N"], 2),
+        f"x {tuple(x.shape)} bf16, log_decay {tuple(ld.shape)} fp32, b/c "
+        f"{tuple(b.shape)} bf16, plain at chunk {m['chunk']}")
+
+
+def k3_phase(torch, wkv6):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    plain = wkv6.wkv6_plain
+
+    def inputs(B, S, H, N, M, scale, dtype, U=0):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        r = (rnd(B, S, H, N) * 0.5).to(dtype)
+        k = (rnd(B, S, H, N) * 0.5).to(dtype)
+        v = (rnd(B, S, H, M) * 0.5).to(dtype)
+        lw = -torch.exp(rnd(B, S, H, N)) * scale
+        u = rnd(*((U, H, N) if U else (H, N))) * 0.5
+        return r, k, v, lw, u
+
+    def case(label, r, k, v, lw, u, chunk):
+        out, sfin = wkv6.launch(r, k, v, lw, u)
+        want, swant = plain(r, k, v, lw, u, chunk=chunk)
+        want32, _ = plain(r.float(), k.float(), v.float(), lw, u,
+                          chunk=chunk)
+        stol = 1e-4 if r.dtype == torch.float32 else 1e-2
+        return check_case(torch, "K3", label, out, want, want32,
+                          state=(sfin, swant, stol))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, N, M, chunk, scale in WKV_SWEEP:
+            case(f"{str(dtype)[6:]} B={B} S={S} H={H} N={N} M={M} "
+                 f"chunk={chunk} decay_scale={scale}",
+                 *inputs(B, S, H, N, M, scale, dtype), chunk)
+    # one u per client, two batch rows a client (the fed step's folding)
+    case("fp32 B=4 S=64 H=2 N=M=32, u per client (2 rows each)",
+         *inputs(4, 64, 2, 32, 32, 1.0, torch.float32, U=2), 16)
+
+    # a sequence cut in two through initial_state equals one pass
+    r, k, v, lw, u = inputs(1, 96, 2, 32, 32, 1.0, torch.float32)
+    cut = 40
+    o1, s1 = wkv6.launch(*(t[:, :cut].contiguous() for t in (r, k, v, lw)),
+                         u)
+    o2, s2 = wkv6.launch(*(t[:, cut:].contiguous() for t in (r, k, v, lw)),
+                         u, initial_state=s1)
+    want, swant = plain(r, k, v, lw, u, chunk=16)
+    check_case(torch, "K3", f"fp32 S=96 cut at {cut} through initial_state",
+               torch.cat([o1, o2], dim=1), want, want,
+               state=(s2, swant, 1e-4))
+
+    m = WKV_MAIN
+    r, k, v, lw, u = inputs(m["B"], m["S"], m["H"], m["N"], m["M"], 1.0,
+                            torch.bfloat16, U=m["B"])
+    err, rel = case("main-path shape bf16, u per batch row", r, k, v, lw, u,
+                    m["chunk"])
+    return timed_record(
+        torch, "K3", "wkv6_fwd", "src/repro_torch/kernels/csrc/wkv6.cu",
+        "src/repro/kernels/wkv6.py:79", err, rel,
+        lambda: wkv6.launch(r, k, v, lw, u),
+        lambda: plain(r, k, v, lw, u, chunk=m["chunk"]),
+        wkv_work(m["B"], m["S"], m["H"], m["N"], m["M"], m["B"], 2),
+        f"r/k/v {tuple(r.shape)} bf16, log_w fp32, u {tuple(u.shape)} fp32, "
+        f"plain at chunk {m['chunk']}")
+
+
+def path_parity_phase(torch, counters, arch):
+    """One fed step on ``arch``'s smoke config (fp32) on the CPU and on the
+    card from the same params and batches."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import fedpair, splitting
     from repro_torch.models import registry
     from repro_torch.tree import tree_items, tree_map
 
-    cfg = get_smoke_config("tinyllama-1.1b")
+    cfg = get_smoke_config(arch)
     n = 4
     g = registry.init_params(cfg, 0, "cpu")
     noise = torch.Generator().manual_seed(1)
@@ -234,26 +436,33 @@ def path_parity_phase(torch, fa):
             splitting.split_plan(cfg, g), cfg.num_layers,
             fedpair.FedPairingConfig(lr=0.05, donate=False))
         params = tree_map(lambda a: a.to(dev), base)
-        before = fa.launches
+        before = {kid: m.launches for kid, m in counters.items()}
         new, m = step(params, {k: v.to(dev) for k, v in batch.items()},
                       partner, lengths, agg_w)
         torch.cuda.synchronize()
-        results[dev] = (new, m["loss"].cpu(), fa.launches - before)
-    (cpu_new, cpu_loss, _), (gpu_new, gpu_loss, gpu_launches) = \
+        launched = {kid: counters[kid].launches - before[kid]
+                    for kid in counters}
+        results[dev] = (new, m["loss"].cpu(), launched)
+    (cpu_new, cpu_loss, cpu_launched), (gpu_new, gpu_loss, gpu_launched) = \
         results["cpu"], results["cuda"]
-    log(f"  losses cpu {cpu_loss.tolist()} cuda {gpu_loss.tolist()}")
+    log(f"  {cfg.name}: losses cpu {cpu_loss.tolist()} cuda "
+        f"{gpu_loss.tolist()}")
     if not torch.allclose(gpu_loss, cpu_loss, rtol=1e-4, atol=1e-4):
-        raise AssertionError("fed step losses differ between cuda and cpu")
+        raise AssertionError(f"{cfg.name}: fed step losses differ between "
+                             f"cuda and cpu")
     worst = 0.0
     for (path, a), (_, b) in zip(tree_items(gpu_new), tree_items(cpu_new)):
         worst = max(worst, (a.cpu() - b).abs().max().item())
         if not torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4):
-            raise AssertionError(f"fed step param {path} differs between "
-                                 f"cuda and cpu")
-    if gpu_launches <= 0:
-        raise AssertionError("the cuda fed step did not launch K1")
-    log(f"  new params agree (max_abs_diff {worst:.3e}); K1 launches in "
-        f"the cuda step: {gpu_launches}")
+            raise AssertionError(f"{cfg.name}: fed step param {path} differs "
+                                 f"between cuda and cpu")
+    if any(cpu_launched.values()) or not all(
+            gpu_launched[kid] > 0 for kid in SMOKE_PATHS[arch]):
+        raise AssertionError(f"{cfg.name}: kernel launches cpu "
+                             f"{cpu_launched}, cuda {gpu_launched}; expected "
+                             f"{SMOKE_PATHS[arch]} on cuda only")
+    log(f"  {cfg.name}: new params agree (max_abs_diff {worst:.3e}); kernel "
+        f"launches in the cuda step: {gpu_launched}")
 
 
 def sim_phase(torch, fa):
@@ -286,15 +495,42 @@ def sim_phase(torch, fa):
         f"{launched['cuda']} on cuda")
 
 
-def slice_phase(torch, fa, cfg, s=SLICE, device="cuda"):
+def widths(cfg) -> str:
+    """The full-width shapes of a slice, by family."""
+    fam = cfg.family.value
+    common = f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+    if fam == "ssm":
+        return (f"{common}, {cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+                f"{cfg.rwkv_head_dim}")
+    attn = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.resolved_head_dim}")
+    if fam == "hybrid":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        return (f"{common}, d_inner {d_inner} = {d_inner // cfg.ssm_head_dim} "
+                f"SSD heads of {cfg.ssm_head_dim}, ssm_state {cfg.ssm_state}, "
+                f"shared block {attn}, shared_attn_every "
+                f"{cfg.shared_attn_every}")
+    return f"{common}, {attn}"
+
+
+def slice_phase(torch, counters, arch, layers, why, per_step, s=SLICE,
+                device="cuda", cfg=None):
+    """The ``RoundDriver`` on ``arch`` at full width with its depth cut to
+    ``layers`` (or on ``cfg`` as given: a small config rehearses the phase
+    on the CPU).  Checks each kernel's launches against ``per_step`` per
+    fed step, and returns (launches, driver, state)."""
+    from repro_torch.configs import get_config
     from repro_torch.core import latency, rounds
     from repro_torch.tree import tree_leaves
 
-    log(f"  depth cut: tinyllama-1.1b num_layers 22 -> {cfg.num_layers}; "
-        f"full width d_model {cfg.d_model}, heads {cfg.num_heads}/"
-        f"{cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; compute {cfg.dtype}, params "
-        f"{cfg.param_dtype}; {cfg.param_count() / 1e6:.1f}M params a replica")
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    full = get_config(arch)
+    cfg = cfg or full.with_overrides(num_layers=layers)
+    log(f"  depth cut: {arch} num_layers {full.num_layers} -> "
+        f"{cfg.num_layers} ({why}); full width {widths(cfg)}; compute "
+        f"{cfg.dtype}, params {cfg.param_dtype}; "
+        f"{cfg.param_count() / 1e6:.1f}M params a replica")
     log(f"  N={s['clients']} clients, batch {s['batch']}, seq {s['seq']}, "
         f"{s['rounds']} rounds x {s['batches_per_round']} batches")
     rc = rounds.RoundConfig(rounds=s["rounds"],
@@ -312,22 +548,24 @@ def slice_phase(torch, fa, cfg, s=SLICE, device="cuda"):
     engine_step = driver._engine.step
 
     def timed_step(*args):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = engine_step(*args)
-        torch.cuda.synchronize()
+        sync()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
     driver._engine.step = timed_step
     state = driver.init_state()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0                            # count the main path alone
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for m in counters.values():                # count the main path alone
+        m.launches = 0
     for _ in range(s["rounds"]):
         t0 = time.perf_counter()
         state = driver.run_round(state)
-        torch.cuda.synchronize()
+        sync()
         r = state.history[-1]
         log(f"  round {r.round}: cohort={list(r.cohort)} "
             f"pairs={list(r.pairs)} lengths={list(r.lengths)} "
@@ -335,25 +573,31 @@ def slice_phase(torch, fa, cfg, s=SLICE, device="cuda"):
             f"wall={time.perf_counter() - t0:.3f}s")
         if not math.isfinite(r.mean_loss):
             raise AssertionError(f"round {r.round} loss is not finite")
-    launches = fa.launches
-    peak = torch.cuda.max_memory_allocated()
+    launches = {kid: m.launches for kid, m in counters.items()}
     for leaf in tree_leaves(state.client_params):
         if not torch.isfinite(leaf).all():
             raise AssertionError("non-finite params after the slice")
     log(f"  step ms: {[round(t, 3) for t in step_ms]} (first includes "
         f"warm-up); median {statistics.median(step_ms):.3f}")
-    log(f"  peak device memory: {peak / 2**30:.2f} GiB "
-        f"(max_memory_allocated)")
-    expected = cfg.num_layers * s["rounds"] * s["batches_per_round"]
-    log(f"  K1 launches on the main path: {launches} (expected {expected}: "
-        f"one per layer per step, the N clients folded into the batch)")
-    if launches <= 0:
-        raise AssertionError("the slice never launched K1")
+    if on_card:
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory: {peak / 2**30:.2f} GiB "
+            f"(max_memory_allocated)")
+    steps = s["rounds"] * s["batches_per_round"]
+    expected = {kid: per_step.get(kid, 0) * steps for kid in counters}
+    log(f"  kernel launches on the main path: {launches} (expected "
+        f"{expected}: per fed step {per_step}, the N clients folded into "
+        f"the batch)")
+    if on_card and launches != expected:
+        raise AssertionError(f"{arch}: kernel launches {launches}, expected "
+                             f"{expected}")
     return launches, driver, state
 
 
 KERNEL_GROUPS = (          # (group, substrings of the device kernel name)
     ("K1 flash-attention fwd", ("fa_fwd_kernel",)),
+    ("K2 SSD scan fwd", ("ssd_fwd_kernel",)),
+    ("K3 WKV6 fwd", ("wkv6_fwd_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("softmax", ("softmax",)),
     ("reduction", ("reduce",)),
@@ -422,12 +666,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from repro_torch.kernels import build, ref
+        from repro_torch.kernels import build, ref, ssd_scan, wkv6
         from repro_torch.kernels import flash_attention as fa
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository "
               f"({exc})", file=sys.stderr)
         return 2
+    counters = {"K1": fa, "K2": ssd_scan, "K3": wkv6}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -447,18 +692,30 @@ def main() -> int:
         log_ptxas(name, build.build_log(name))
 
     log("[1] kernels vs plain versions on the card")
-    k1 = kernel_phase(torch, fa, ref)
-    log("[2] path parity: make_fed_step on cuda vs cpu (smoke config, fp32)")
-    path_parity_phase(torch, fa)
+    records = {"K1": k1_phase(torch, fa, ref), "K2": k2_phase(torch, ssd_scan),
+               "K3": k3_phase(torch, wkv6)}
+    log("[2] path parity: make_fed_step on cuda vs cpu (smoke configs, fp32)")
+    for arch in SMOKE_PATHS:
+        path_parity_phase(torch, counters, arch)
     sim_phase(torch, fa)
-    log("[3] slice: RoundDriver on tinyllama-1.1b, full width, cut depth")
-    from repro_torch.configs import get_config
-    cfg = get_config("tinyllama-1.1b").with_overrides(num_layers=SLICE_LAYERS)
-    k1["launches"], driver, state = slice_phase(torch, fa, cfg)
-    log("[4] breakdown: one more slice step under torch.profiler")
-    breakdown_phase(torch, driver, state)
+    by_path = {kid: {} for kid in records}
+    for arch, layers, why, per_step in SLICES:
+        log(f"[3] slice: RoundDriver on {arch}, full width, cut depth")
+        launches, driver, state = slice_phase(torch, counters, arch, layers,
+                                              why, per_step)
+        for kid, n in launches.items():
+            if n:
+                by_path[kid][arch] = n
+        log(f"[4] breakdown: one more {arch} step under torch.profiler")
+        breakdown_phase(torch, driver, state)
+        del driver, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kid, rec in records.items():
+        rec["launches"] = sum(by_path[kid].values())
+        rec["launches_by_path"] = by_path[kid]
 
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,24 @@
 """Architecture config registry of the port.
 
-The port has ported the dense llama family only, so it knows one public
-``--arch`` id.  Every other id of the reference raises and names the
-ROADMAP item that ports its family.
+The port knows the families it has ported: the dense llama
+(tinyllama-1.1b), the RWKV6 SSM (rwkv6-1.6b) and the Mamba2 + shared
+attention hybrid (zamba2-1.2b).  Every other id of the reference raises
+and names the ROADMAP item that ports its family.
 """
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import tinyllama_1p1b
+from repro_torch.configs import rwkv6_1p6b, tinyllama_1p1b, zamba2_1p2b
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
     ArchConfig,
     ArchFamily,
     AttentionKind,
 )
 
-_ARCH_MODULES = {"tinyllama-1.1b": tinyllama_1p1b}
+_ARCH_MODULES = {"tinyllama-1.1b": tinyllama_1p1b,
+                 "rwkv6-1.6b": rwkv6_1p6b,
+                 "zamba2-1.2b": zamba2_1p2b}
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 

@@ -98,8 +98,10 @@ def make_fed_step(loss_fn: LossFn, plan: Dict, num_layers: int,
             mixed = tree_map(mix, client_params, plan)
         leaves = [t.requires_grad_() for t in tree_leaves(mixed)]
         losses = loss_fn(mixed, batches)
-        g_mix = tree_unflatten(mixed,
-                               torch.autograd.grad(losses.sum(), leaves))
+        # a leaf the loss never reads (the hybrid's shared ``attn/wo``) has
+        # a zero gradient, as under the reference's grad
+        g_mix = tree_unflatten(mixed, torch.autograd.grad(
+            losses.sum(), leaves, allow_unused=True, materialize_grads=True))
 
         if fed_cfg.aggregation == "paper":
             a_own, a_in = agg_w, agg_w[partner]

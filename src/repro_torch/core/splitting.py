@@ -6,7 +6,9 @@ Parameters that are not per-block are labeled so the FedPairing step knows
 which side of the split they live on:
 
   * ``stack``   — stacked per-block params; the (L-dependent) mask applies.
-  * ``bottom``  — always computed by the data owner (embedding).
+  * ``bottom``  — always computed by the data owner (embedding, and the
+                  hybrid's shared attention block: a permanent overlapping
+                  layer its data owner keeps).
   * ``top``     — always computed by the partner (final norm, unembed).
 """
 from __future__ import annotations
@@ -40,9 +42,9 @@ def overlap_factor(mask_own: torch.Tensor, mask_partner: torch.Tensor,
 
 def split_plan(cfg: ArchConfig, params: Dict) -> Dict:
     """Same-structure tree of labels {'stack','bottom','top'} per leaf
-    (the dense param groups of the reference's plan)."""
+    (the reference's labels for the ported families' param groups)."""
     labels = {"embed": "bottom", "ln_f": "top", "unembed": "top",
-              "blocks": "stack"}
+              "blocks": "stack", "mamba": "stack", "shared": "bottom"}
     plan: Dict = {}
     for key, sub in params.items():
         if key not in labels:

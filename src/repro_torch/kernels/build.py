@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("flash_attention",)
+KERNELS = ("flash_attention", "wkv6", "ssd_scan")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

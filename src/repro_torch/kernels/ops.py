@@ -12,7 +12,7 @@ launch raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,3 +48,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.kernels import flash_attention as fa
     return fa.flash_attention(q, k, v, causal=causal,
                               sliding_window=sliding_window)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+def ssd(x: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, *, chunk: int = 64,
+        initial_state: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,H,P), log_decay (B,S,H) fp32, b/c (B,S,N) -> (y (B,S,H,P),
+    final state (B,H,P,N) fp32).  ``chunk`` is the plain version's chunk;
+    on the card it is the chunk of the backward pass's recompute."""
+    if resolve_impl(x, impl) == "eager":
+        return ref.ssd_chunked_ref(x, log_decay, b, c, chunk=chunk,
+                                   initial_state=initial_state)
+    from repro_torch.kernels import ssd_scan
+    return ssd_scan.ssd(x, log_decay, b, c, chunk=chunk,
+                        initial_state=initial_state)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 WKV
+# ---------------------------------------------------------------------------
+
+def wkv6_effective_chunk(chunk: int, impl: Optional[str] = None) -> int:
+    """The chunk ``wkv6`` honours under ``impl`` (counterpart of the
+    reference's query, which coerces requests up to its Pallas kernel's
+    64-step tile).  The CUDA kernel runs the recurrence step by step and
+    has no minimum chunk, so both impls honour the request: it is the
+    plain version's chunk on the CPU and the backward recompute's chunk
+    on the card."""
+    if impl is not None and impl not in _VALID:
+        raise ValueError(f"impl must be one of {_VALID}, got {impl!r}")
+    return chunk
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         log_w: torch.Tensor, u: torch.Tensor, *, chunk: int = 16,
+         initial_state: Optional[torch.Tensor] = None,
+         impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k (B,S,H,N), v (B,S,H,M), log_w (B,S,H,N) fp32, u fp32 (H,N) or
+    (U,H,N) with B // U consecutive batch rows per row (one ``u`` per
+    client when the fed step folds clients into the batch) ->
+    (out (B,S,H,M), final state (B,H,N,M) fp32)."""
+    if resolve_impl(r, impl) == "eager":
+        return ref.wkv6_chunked_ref(r, k, v, log_w, u, chunk=chunk,
+                                    initial_state=initial_state)
+    from repro_torch.kernels import wkv6 as wkv6_kernel
+    return wkv6_kernel.wkv6(r, k, v, log_w, u, chunk=chunk,
+                            initial_state=initial_state)

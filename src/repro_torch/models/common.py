@@ -37,6 +37,35 @@ def dense_init(gen: Optional[torch.Generator], shape: Tuple[int, ...],
     return (w / math.sqrt(shape[-2])).to(dtype)
 
 
+def trunc_normal_init(gen: Optional[torch.Generator], shape: Tuple[int, ...],
+                      scale: float, dtype=torch.float32, device=None
+                      ) -> torch.Tensor:
+    """Truncated normal on [-3, 3] times ``scale``."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (w * scale).to(dtype)
+
+
+def normal_init(gen: Optional[torch.Generator], shape: Tuple[int, ...],
+                scale: float, dtype=torch.float32, device=None
+                ) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, device=device)
+    return (w * scale).to(dtype)
+
+
+def uniform_init(gen: Optional[torch.Generator], shape: Tuple[int, ...],
+                 low: float, high: float, dtype=torch.float32, device=None
+                 ) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.rand(shape, generator=gen, device=device)
+    return (w * (high - low) + low).to(dtype)
+
+
 def embed_init(gen: Optional[torch.Generator], vocab: int, d_model: int,
                dtype=torch.float32, device=None) -> torch.Tensor:
     if gen is None:

@@ -1,4 +1,6 @@
-"""Model registry, dense branch (counterpart of ``repro/models/registry.py``).
+"""Model registry: family dispatch (counterpart of
+``repro/models/registry.py``) for the ported families — dense (tinyllama),
+SSM (rwkv6) and hybrid (zamba2).  The others raise and name ROADMAP A.12.
 
 * ``init_params(cfg, seed, device)``            -> params tree
 * ``forward_logits(params, batch, cfg, gates)``  -> logits
@@ -19,17 +21,21 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, ArchFamily
-from repro_torch.models import common, transformer
+from repro_torch.models import common, hybrid, rwkv6, transformer
 from repro_torch.tree import tree_leaves, tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != ArchFamily.DENSE:
+PORTED_FAMILIES = (ArchFamily.DENSE, ArchFamily.SSM, ArchFamily.HYBRID)
+
+
+def _ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense family only; "
+            f"{cfg.name}: the port runs the "
+            f"{', '.join(f.value for f in PORTED_FAMILIES)} families; "
             f"{cfg.family.value} is ROADMAP item A.12")
 
 
@@ -43,15 +49,19 @@ def init_params(cfg: ArchConfig, seed: Optional[int] = 0,
     ``torch.Generator().manual_seed(seed)`` and moved to ``device``, so one
     seed gives one model on every device.  ``seed=None`` allocates on
     ``device`` without drawing (used on the meta device to count)."""
-    _dense_only(cfg)
+    _ported(cfg)
     dtype = DTYPES[cfg.param_dtype]
     if seed is None:
         gen, where = None, device
     else:
         gen, where = torch.Generator().manual_seed(seed), "cpu"
-    p = transformer.lm_head_init(gen, cfg, dtype, where)
-    p["blocks"] = transformer.block_stack_init(gen, cfg, cfg.num_layers,
-                                               dtype, where)
+    if cfg.family == ArchFamily.HYBRID:
+        p = hybrid.hybrid_init(gen, cfg, dtype, where)
+    else:
+        p = transformer.lm_head_init(gen, cfg, dtype, where)
+        stack_init = (rwkv6.rwkv_stack_init if cfg.family == ArchFamily.SSM
+                      else transformer.block_stack_init)
+        p["blocks"] = stack_init(gen, cfg, cfg.num_layers, dtype, where)
     return p if where == device else tree_map(lambda a: a.to(device), p)
 
 
@@ -62,9 +72,22 @@ def init_params(cfg: ArchConfig, seed: Optional[int] = 0,
 def forward_hidden(params: Dict, batch: Dict, cfg: ArchConfig,
                    gates: Optional[torch.Tensor] = None, *,
                    sliding_window: Optional[int] = None) -> torch.Tensor:
-    """Training / prefill forward to final hidden states (pre-head)."""
-    _dense_only(cfg)
+    """Training / prefill forward to final hidden states (pre-head).
+    ``gates`` gate the split unit: the blocks, or the hybrid's mamba
+    layers."""
+    _ported(cfg)
+    if cfg.family == ArchFamily.HYBRID:
+        return hybrid.hybrid_forward(params, batch["tokens"], cfg, gates,
+                                     sliding_window=sliding_window)
     x = transformer.embed(params, batch["tokens"], cfg)
+    if cfg.family == ArchFamily.SSM:
+        lead = x.dim() - 3                  # index of the layer axis
+        for layer in range(cfg.num_layers):
+            p_l = tree_map(lambda a: a.select(lead, layer), params["blocks"])
+            g = (torch.ones((), dtype=x.dtype, device=x.device)
+                 if gates is None else gates[..., layer])
+            x = rwkv6.rwkv_block_apply(p_l, x, cfg, g)
+        return x
     S = x.shape[-2]
     pos = torch.arange(S, device=x.device)[None, :]
     cos, sin = common.rope_cos_sin(pos, cfg.resolved_head_dim,
@@ -77,7 +100,8 @@ def forward_hidden(params: Dict, batch: Dict, cfg: ArchConfig,
 def forward_logits(params: Dict, batch: Dict, cfg: ArchConfig,
                    gates: Optional[torch.Tensor] = None, *,
                    sliding_window: Optional[int] = None) -> torch.Tensor:
-    """Training / prefill forward to logits (dense: no MoE aux term)."""
+    """Training / prefill forward to logits (no ported family has the MoE
+    aux term)."""
     h = forward_hidden(params, batch, cfg, gates,
                        sliding_window=sliding_window)
     return transformer.lm_logits(params, h, cfg)
@@ -103,7 +127,7 @@ def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, vocab: int
 def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig,
             gates: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
-    """Next-token CE (labels < 0 are masked).  The dense family has no
+    """Next-token CE (labels < 0 are masked).  No ported family has a
     router, so the reference's ``router_aux_coef * aux`` term is zero."""
     logits = forward_logits(params, batch, cfg, gates)
     tot, cnt = _ce_terms(logits, batch["labels"], cfg.vocab_size)

@@ -31,39 +31,54 @@ JCFG = jax_smoke(ARCH).with_overrides(**SMALL)
 TCFG = get_smoke_config(ARCH).with_overrides(**SMALL)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
-# (partner involution, lengths): N = 4 two pairs; N = 5 adds a self-pair
+# (partner involution, lengths) by depth W and N: N = 4 two pairs; N = 5
+# adds a self-pair
 CASES = {
-    4: (np.array([2, 3, 0, 1]), np.array([1, 3, 3, 1])),
-    5: (np.array([1, 0, 2, 4, 3]), np.array([2, 2, 4, 3, 1])),
+    (4, 4): (np.array([2, 3, 0, 1]), np.array([1, 3, 3, 1])),
+    (4, 5): (np.array([1, 0, 2, 4, 3]), np.array([2, 2, 4, 3, 1])),
+    (2, 4): (np.array([2, 3, 0, 1]), np.array([1, 1, 1, 1])),
+    (2, 5): (np.array([1, 0, 2, 4, 3]), np.array([1, 1, 2, 1, 1])),
 }
 
 
-def _fleet(n, seed=0):
+def _cfgs(arch):
+    """tinyllama: its smoke widths at 4 layers; rwkv6-smoke and
+    zamba2-smoke as they are (2 layers)."""
+    if arch == ARCH:
+        return JCFG, TCFG
+    return jax_smoke(arch), get_smoke_config(arch)
+
+
+def _fleet(n, seed=0, jcfg=JCFG):
     """Per-client params (a JAX init plus client noise) and batches."""
-    g = jregistry.init_params(JCFG, jax.random.key(seed))
+    g = jregistry.init_params(jcfg, jax.random.key(seed))
     rng = np.random.default_rng(seed)
     stacked = {k: (np.broadcast_to(a, (n,) + a.shape)
                    + 0.02 * rng.standard_normal((n,) + a.shape)
                    ).astype(np.float32)
                for k, a in _flatten(g).items()}
-    toks = rng.integers(0, JCFG.vocab_size, size=(n, 2, 16)).astype(np.int32)
-    labels = rng.integers(0, JCFG.vocab_size, size=(n, 2, 16))
+    toks = rng.integers(0, jcfg.vocab_size, size=(n, 2, 16)).astype(np.int32)
+    labels = rng.integers(0, jcfg.vocab_size, size=(n, 2, 16))
     return g, stacked, {"tokens": toks, "labels": labels}
 
 
 @pytest.mark.parametrize("boost", [True, False])
 @pytest.mark.parametrize("aggregation", ["paper", "fedavg"])
-@pytest.mark.parametrize("n", [4, 5])
-def test_step_matches_reference(n, aggregation, boost):
-    partner, lengths = CASES[n]
-    g, flat, batches = _fleet(n)
+@pytest.mark.parametrize("arch,n", [
+    pytest.param(ARCH, 4, id="4"), pytest.param(ARCH, 5, id="5"),
+    *(pytest.param(arch, n, id=f"{arch}-{n}")
+      for arch in ("rwkv6-1.6b", "zamba2-1.2b") for n in (4, 5))])
+def test_step_matches_reference(arch, n, aggregation, boost):
+    jcfg, tcfg = _cfgs(arch)
+    partner, lengths = CASES[(jcfg.num_layers, n)]
+    g, flat, batches = _fleet(n, jcfg=jcfg)
     agg_w = jfedpair.pair_weights(np.array([3, 5, 2, 4, 6][:n]), partner)
 
     tcp = params_from_jax(flat, device="cpu")
     jtree = jax.tree_util.tree_map(jnp.asarray, _unflatten_like(g, flat))
     jstep = jfedpair.make_fed_step(
-        lambda p, b: jregistry.loss_fn(p, b, JCFG)[0],
-        jsplitting.split_plan(JCFG, g), JCFG.num_layers,
+        lambda p, b: jregistry.loss_fn(p, b, jcfg)[0],
+        jsplitting.split_plan(jcfg, g), jcfg.num_layers,
         jfedpair.FedPairingConfig(lr=0.05, overlap_boost=boost,
                                   aggregation=aggregation, donate=False))
     jnew, jm = jstep(jtree, {k: jnp.asarray(v) for k, v in batches.items()},
@@ -72,8 +87,8 @@ def test_step_matches_reference(n, aggregation, boost):
                      jnp.asarray(agg_w, jnp.float32))
 
     tstep = fedpair.make_fed_step(
-        lambda p, b: registry.loss_fn(p, b, TCFG)[0],
-        splitting.split_plan(TCFG, tcp), TCFG.num_layers,
+        lambda p, b: registry.loss_fn(p, b, tcfg)[0],
+        splitting.split_plan(tcfg, tcp), tcfg.num_layers,
         fedpair.FedPairingConfig(lr=0.05, overlap_boost=boost,
                                  aggregation=aggregation, donate=False))
     tnew, tm = tstep(tcp, {k: torch.tensor(v) for k, v in batches.items()},
@@ -91,7 +106,7 @@ def test_step_matches_reference(n, aggregation, boost):
 
 
 def test_donated_step_updates_in_place():
-    partner, lengths = CASES[4]
+    partner, lengths = CASES[(4, 4)]
     g, flat, batches = _fleet(4)
     params = params_from_jax(flat, device="cpu")
     step = fedpair.make_fed_step(
@@ -107,7 +122,7 @@ def test_donated_step_updates_in_place():
 
 def test_self_pair_is_local_sgd():
     """A self-paired client's update is its own full-stack SGD step."""
-    partner, lengths = CASES[5]
+    partner, lengths = CASES[(4, 5)]
     g, flat, batches = _fleet(5)
     params = params_from_jax(flat, device="cpu")
     plan = splitting.split_plan(TCFG, params)

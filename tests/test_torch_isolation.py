@@ -1,6 +1,7 @@
-"""The port stands alone: no file under ``src/repro_torch/`` imports
-``jax`` or anything of the reference package ``repro``, and every module
-imports in a process where ``jax`` cannot be imported."""
+"""The port stands alone: no file under ``src/repro_torch/``, nor the
+port's ``chip_smoke.py``, imports ``jax`` or anything of the reference
+package ``repro``, and every module imports in a process where ``jax``
+cannot be imported."""
 import ast
 import pathlib
 import subprocess
@@ -10,7 +11,9 @@ import pytest
 
 pytestmark = pytest.mark.torch_port
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+CHIP_SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -30,13 +33,13 @@ def _imported(tree):
 
 
 def test_no_file_imports_jax_or_the_reference():
-    seen = 0
-    for path, _ in _modules():
+    seen = set()
+    for path in [p for p, _ in _modules()] + [CHIP_SMOKE]:
         for name in _imported(ast.parse(path.read_text())):
             root = name.split(".")[0]
             assert root not in FORBIDDEN, f"{path.name} imports {name}"
-            seen += 1
-    assert seen > 0
+            seen.add((path.name, root))
+    assert ("chip_smoke.py", "repro_torch") in seen
 
 
 def test_every_module_imports_without_jax():

@@ -157,4 +157,4 @@ def test_count_params_analytical_is_exact(smoke):
 
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_smoke_config("rwkv6-1.6b")
+        get_smoke_config("deepseek-moe-16b")

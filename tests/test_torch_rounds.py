@@ -34,10 +34,10 @@ HOST_FIELDS = ("round", "cohort", "pairs", "lengths", "sim_round_s",
                "status", "wait_s")
 
 
-def _workloads(seq=32):
-    return (jlatency.workload_from_arch(JCFG, seq_len=seq, batch_size=2,
+def _workloads(seq=32, jcfg=JCFG, tcfg=TCFG):
+    return (jlatency.workload_from_arch(jcfg, seq_len=seq, batch_size=2,
                                         batches_per_epoch=2, local_epochs=1),
-            latency.workload_from_arch(TCFG, seq_len=seq, batch_size=2,
+            latency.workload_from_arch(tcfg, seq_len=seq, batch_size=2,
                                        batches_per_epoch=2, local_epochs=1))
 
 
@@ -76,16 +76,26 @@ def test_host_plans_bit_identical(n, split_policy):
         assert tup == jup and tu == ju
 
 
-@pytest.mark.parametrize("participation_frac,drift", [(1.0, 0.0), (0.75, 5.0)])
-def test_driver_trace_matches_reference(participation_frac, drift):
+@pytest.mark.parametrize("arch,participation_frac,drift", [
+    pytest.param(arch, frac, drift,
+                 id=f"{frac}-{drift}" if arch == ARCH
+                 else f"{arch}-{frac}-{drift}")
+    for arch in (ARCH, "rwkv6-1.6b", "zamba2-1.2b")
+    for frac, drift in ((1.0, 0.0), (0.75, 5.0))])
+def test_driver_trace_matches_reference(arch, participation_frac, drift):
     n = 4
-    jw, tw = _workloads()
+    # tinyllama: its smoke widths at 4 layers; rwkv6-smoke and
+    # zamba2-smoke as they are
+    jcfg, tcfg = ((JCFG, TCFG) if arch == ARCH
+                  else (jax_smoke(arch), get_smoke_config(arch)))
+    jw, tw = _workloads(jcfg=jcfg, tcfg=tcfg)
+    assert dataclasses.asdict(jw) == dataclasses.asdict(tw)
     kw = dict(rounds=2, batches_per_round=2, participation=participation_frac,
               drift_sigma_m=drift, seed=0)
-    jdrv = jrounds.RoundDriver(JCFG, jrounds.RoundConfig(**kw),
+    jdrv = jrounds.RoundDriver(jcfg, jrounds.RoundConfig(**kw),
                                jlatency.make_fleet(n=n, seed=0), workload=jw)
-    gparams = jregistry.init_params(JCFG, jax.random.key(0))
-    tdrv = rounds.RoundDriver(TCFG, rounds.RoundConfig(**kw),
+    gparams = jregistry.init_params(jcfg, jax.random.key(0))
+    tdrv = rounds.RoundDriver(tcfg, rounds.RoundConfig(**kw),
                               latency.make_fleet(n=n, seed=0), workload=tw,
                               params=params_from_jax(_flatten(gparams), "cpu"),
                               device="cpu")
