@@ -9,17 +9,19 @@ Phases, each raising on failure (any failure exits non-zero):
    sources (one ``nvcc`` per source, all started together), then hold each
    against its plain PyTorch version on the card over the shape sweeps of
    ``tests/test_kernels.py`` in fp32 (tol 1e-4) and bf16 (tol 2e-2), then
-   at the main path's shape: K1 (flash-attention forward), K2 (the Mamba2
-   SSD scan) and K3 (the RWKV6 WKV recurrence), K2 and K3 also across a
-   sequence cut in two through ``initial_state`` and K3 under decay scale
-   8.  Each case is checked elementwise against the plain version on the
-   same inputs, and by its relative norm error ||got - want|| / ||want||
-   against the plain version computed in fp32 on the same values (limit
-   1e-5 for fp32, 5e-3 for bf16, about two bf16 roundings), so a kernel
-   wrong by a few percent where |out| is small cannot pass.  At the main
-   path's shape each kernel and its plain version are timed with CUDA
-   events, K1 also beside one PyTorch library call, and the least time the
-   card could take is computed from the shapes.
+   at the shape each slice of phase 3 gives it: K1 (flash-attention
+   forward; tinyllama's GQA blocks and zamba2's MHA shared block), K2 (the
+   Mamba2 SSD scan) and K3 (the RWKV6 WKV recurrence, one ``u`` per
+   client), K2 and K3 also across a sequence cut in two through
+   ``initial_state`` and K3 under decay scale 8.  Each case is checked
+   elementwise against the plain version on the same inputs, and by its
+   relative norm error ||got - want|| / ||want|| against the plain version
+   computed in fp32 on the same values (limit 1e-5 for fp32, 5e-3 for
+   bf16, about two bf16 roundings), so a kernel wrong by a few percent
+   where |out| is small cannot pass.  At each slice's shape each kernel
+   and its plain version are timed with CUDA events, K1 also beside one
+   PyTorch library call, and the least time the card could take is
+   computed from the shapes.
 2. path parity — one ``make_fed_step`` on the tinyllama, rwkv6 and zamba2
    smoke configs (fp32) on the card and on the CPU from the same params
    and batches: losses and new params agree within 1e-4, and the path's
@@ -33,7 +35,9 @@ Phases, each raising on failure (any failure exits non-zero):
    ``torch.profiler``: device time by kernel group and the device's idle
    share.
 
-The last two lines are the ``kernels`` JSON summary and the result line.
+The last two lines are the ``kernels`` JSON summary (one record for each
+kernel and slice that runs it, with its launches in that slice) and the
+result line.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -64,7 +68,11 @@ ATTN_SWEEP = [
     (1, 128, 2, 1, 64, True, 0),
     (2, 64, 4, 4, 32, True, 16),
 ]
-MAIN_SHAPE = dict(B=8, S=1024, Hq=32, Hkv=4, d=64)   # N=4 clients x batch 2
+# K1's main-path shapes by slice: N=4 clients x batch 2 folded, seq 1024
+K1_MAIN = {
+    "tinyllama-1.1b": dict(B=8, S=1024, Hq=32, Hkv=4, d=64),    # GQA blocks
+    "zamba2-1.2b": dict(B=8, S=1024, Hq=32, Hkv=32, d=64),      # shared block
+}
 # tests/test_kernels.py:57-63: (B, S, H, P, N, chunk)
 SSD_SWEEP = [
     (2, 128, 4, 64, 32, 32),
@@ -81,7 +89,8 @@ WKV_SWEEP = [
 ]
 # the main path's shapes: N=4 clients x batch 2 folded, seq 1024
 SSD_MAIN = dict(B=8, S=1024, H=64, P=64, N=64, chunk=64)     # zamba2-1.2b
-WKV_MAIN = dict(B=8, S=1024, H=32, N=64, M=64, chunk=16)     # rwkv6-1.6b
+# rwkv6-1.6b: u per client, U=4 rows for the 8 folded batch rows
+WKV_MAIN = dict(B=8, S=1024, H=32, N=64, M=64, U=4, chunk=16)
 SLICE = dict(clients=4, batch=2, seq=1024, rounds=2, batches_per_round=2)
 # (arch, depth cut, why, expected launches per fed step by kernel)
 SLICES = [
@@ -227,22 +236,23 @@ def check_k1(torch, fa, ref, q, k, v, causal, window, label):
     return check_case(torch, "K1", label, got, want, want32)
 
 
-def timed_record(torch, kid, name, source, replaces, err, rel, kernel_fn,
-                 plain_fn, work, shape_note, library_ms=None):
-    """Time the kernel and its plain version at the main path's shape and
-    return the kernel's line of the ``kernels`` summary."""
+def timed_record(torch, kid, path, name, source, replaces, err, rel,
+                 kernel_fn, plain_fn, work, shape_note, library_ms=None):
+    """Time the kernel and its plain version at the shape that slice
+    ``path`` gives it and return the kernel's line of the ``kernels``
+    summary for that path."""
     ms = time_ms(kernel_fn)
     plain_ms = time_ms(plain_fn)
     flops, nbytes = work
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"  {kid} main shape {shape_note}: {flops / 1e9:.2f} GFLOP, "
+    log(f"  {kid} {path} main shape {shape_note}: {flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB")
-    log(f"  {kid} ms={ms!r} plain_ms={plain_ms!r} library_ms={library_ms!r} "
-        f"bound_ms={bound_ms!r} ({bound_by}); kernel at "
-        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+    log(f"  {kid} {path} ms={ms!r} plain_ms={plain_ms!r} "
+        f"library_ms={library_ms!r} bound_ms={bound_ms!r} ({bound_by}); "
+        f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
         f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
-    return {"name": name, "route": "cuda",
-            "source": source,
+    return {"id": kid, "path": path, "name": name, "route": "cuda",
+            "source": source, "shape": shape_note,
             "replaces": replaces, "max_abs_err": err, "rel_err": rel,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -264,10 +274,16 @@ def k1_phase(torch, fa, ref):
                      f"{str(dtype)[6:]} B={B} S={S} Hq={Hq} Hkv={Hkv} d={d} "
                      f"causal={causal} window={window}")
 
-    m = MAIN_SHAPE
+    return [k1_main(torch, fa, ref, qkv, path, m)
+            for path, m in K1_MAIN.items()]
+
+
+def k1_main(torch, fa, ref, qkv, path, m):
+    """K1 at the shape slice ``path`` gives it: checked, timed beside its
+    plain version and the library call, and bounded."""
     q, k, v = qkv(m["B"], m["S"], m["Hq"], m["Hkv"], m["d"], torch.bfloat16)
     err, rel = check_k1(torch, fa, ref, q, k, v, True, 0,
-                        "main-path shape bf16 causal")
+                        f"{path} main-path shape bf16 causal")
     want = ref.attention_ref(q, k, v, causal=True)
     library_ms = None
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -283,7 +299,7 @@ def k1_phase(torch, fa, ref):
         library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
                                           enable_gqa=True))
     return timed_record(
-        torch, "K1", "flash_attention_fwd",
+        torch, "K1", path, "flash_attention_fwd",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:81", err, rel,
         lambda: fa.launch(q, k, v, causal=True),
@@ -336,7 +352,7 @@ def k2_phase(torch, ssd_scan):
                          torch.bfloat16)
     err, rel = case("main-path shape bf16", x, ld, b, c, m["chunk"])
     return timed_record(
-        torch, "K2", "ssd_scan_fwd",
+        torch, "K2", "zamba2-1.2b", "ssd_scan_fwd",
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:74",
         err, rel, lambda: ssd_scan.launch(x, ld, b, c),
@@ -393,15 +409,16 @@ def k3_phase(torch, wkv6):
 
     m = WKV_MAIN
     r, k, v, lw, u = inputs(m["B"], m["S"], m["H"], m["N"], m["M"], 1.0,
-                            torch.bfloat16, U=m["B"])
-    err, rel = case("main-path shape bf16, u per batch row", r, k, v, lw, u,
-                    m["chunk"])
+                            torch.bfloat16, U=m["U"])
+    err, rel = case(f"main-path shape bf16, u per client ({m['B'] // m['U']} "
+                    f"rows each)", r, k, v, lw, u, m["chunk"])
     return timed_record(
-        torch, "K3", "wkv6_fwd", "src/repro_torch/kernels/csrc/wkv6.cu",
+        torch, "K3", "rwkv6-1.6b", "wkv6_fwd",
+        "src/repro_torch/kernels/csrc/wkv6.cu",
         "src/repro/kernels/wkv6.py:79", err, rel,
         lambda: wkv6.launch(r, k, v, lw, u),
         lambda: plain(r, k, v, lw, u, chunk=m["chunk"]),
-        wkv_work(m["B"], m["S"], m["H"], m["N"], m["M"], m["B"], 2),
+        wkv_work(m["B"], m["S"], m["H"], m["N"], m["M"], m["U"], 2),
         f"r/k/v {tuple(r.shape)} bf16, log_w fp32, u {tuple(u.shape)} fp32, "
         f"plain at chunk {m['chunk']}")
 
@@ -434,7 +451,8 @@ def path_parity_phase(torch, counters, arch):
         step = fedpair.make_fed_step(
             lambda p, b: registry.loss_fn(p, b, cfg)[0],
             splitting.split_plan(cfg, g), cfg.num_layers,
-            fedpair.FedPairingConfig(lr=0.05, donate=False))
+            fedpair.FedPairingConfig(lr=0.05, donate=False),
+            unread=registry.unread_leaves(cfg))
         params = tree_map(lambda a: a.to(dev), base)
         before = {kid: m.launches for kid, m in counters.items()}
         new, m = step(params, {k: v.to(dev) for k, v in batch.items()},
@@ -513,20 +531,17 @@ def widths(cfg) -> str:
     return f"{common}, {attn}"
 
 
-def slice_phase(torch, counters, arch, layers, why, per_step, s=SLICE,
-                device="cuda", cfg=None):
+def slice_phase(torch, counters, arch, layers, why, per_step):
     """The ``RoundDriver`` on ``arch`` at full width with its depth cut to
-    ``layers`` (or on ``cfg`` as given: a small config rehearses the phase
-    on the CPU).  Checks each kernel's launches against ``per_step`` per
-    fed step, and returns (launches, driver, state)."""
+    ``layers``.  Checks each kernel's launches against ``per_step`` per fed
+    step, and returns (launches, driver, state)."""
     from repro_torch.configs import get_config
     from repro_torch.core import latency, rounds
     from repro_torch.tree import tree_leaves
 
-    on_card = torch.device(device).type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    s = SLICE
     full = get_config(arch)
-    cfg = cfg or full.with_overrides(num_layers=layers)
+    cfg = full.with_overrides(num_layers=layers)
     log(f"  depth cut: {arch} num_layers {full.num_layers} -> "
         f"{cfg.num_layers} ({why}); full width {widths(cfg)}; compute "
         f"{cfg.dtype}, params {cfg.param_dtype}; "
@@ -542,30 +557,29 @@ def slice_phase(torch, counters, arch, layers, why, per_step, s=SLICE,
     driver = rounds.RoundDriver(
         cfg, rc, fleet, workload=workload,
         batch_fn=rounds.make_lm_batch_fn(cfg, s["clients"], s["batch"],
-                                         s["seq"], 0, device=device),
-        device=device)
+                                         s["seq"], 0, device="cuda"),
+        device="cuda")
     step_ms = []
     engine_step = driver._engine.step
 
     def timed_step(*args):
-        sync()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = engine_step(*args)
-        sync()
+        torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
     driver._engine.step = timed_step
     state = driver.init_state()
-    sync()
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for m in counters.values():                # count the main path alone
         m.launches = 0
     for _ in range(s["rounds"]):
         t0 = time.perf_counter()
         state = driver.run_round(state)
-        sync()
+        torch.cuda.synchronize()
         r = state.history[-1]
         log(f"  round {r.round}: cohort={list(r.cohort)} "
             f"pairs={list(r.pairs)} lengths={list(r.lengths)} "
@@ -579,16 +593,15 @@ def slice_phase(torch, counters, arch, layers, why, per_step, s=SLICE,
             raise AssertionError("non-finite params after the slice")
     log(f"  step ms: {[round(t, 3) for t in step_ms]} (first includes "
         f"warm-up); median {statistics.median(step_ms):.3f}")
-    if on_card:
-        peak = torch.cuda.max_memory_allocated()
-        log(f"  peak device memory: {peak / 2**30:.2f} GiB "
-            f"(max_memory_allocated)")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory: {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated)")
     steps = s["rounds"] * s["batches_per_round"]
     expected = {kid: per_step.get(kid, 0) * steps for kid in counters}
     log(f"  kernel launches on the main path: {launches} (expected "
         f"{expected}: per fed step {per_step}, the N clients folded into "
         f"the batch)")
-    if on_card and launches != expected:
+    if launches != expected:
         raise AssertionError(f"{arch}: kernel launches {launches}, expected "
                              f"{expected}")
     return launches, driver, state
@@ -692,30 +705,27 @@ def main() -> int:
         log_ptxas(name, build.build_log(name))
 
     log("[1] kernels vs plain versions on the card")
-    records = {"K1": k1_phase(torch, fa, ref), "K2": k2_phase(torch, ssd_scan),
-               "K3": k3_phase(torch, wkv6)}
+    records = (k1_phase(torch, fa, ref) + [k2_phase(torch, ssd_scan),
+                                           k3_phase(torch, wkv6)])
     log("[2] path parity: make_fed_step on cuda vs cpu (smoke configs, fp32)")
     for arch in SMOKE_PATHS:
         path_parity_phase(torch, counters, arch)
     sim_phase(torch, fa)
-    by_path = {kid: {} for kid in records}
+    by_path = {}
     for arch, layers, why, per_step in SLICES:
         log(f"[3] slice: RoundDriver on {arch}, full width, cut depth")
         launches, driver, state = slice_phase(torch, counters, arch, layers,
                                               why, per_step)
-        for kid, n in launches.items():
-            if n:
-                by_path[kid][arch] = n
+        by_path[arch] = launches
         log(f"[4] breakdown: one more {arch} step under torch.profiler")
         breakdown_phase(torch, driver, state)
         del driver, state
         gc.collect()
         torch.cuda.empty_cache()
-    for kid, rec in records.items():
-        rec["launches"] = sum(by_path[kid].values())
-        rec["launches_by_path"] = by_path[kid]
+    for rec in records:                  # each record's launches on its path
+        rec["launches"] = by_path[rec["path"]][rec["id"]]
 
-    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,13 +19,13 @@ per-flow ``g_mix``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Collection, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.core import aggregation, splitting
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 # (params stacked (N, ...), batches stacked (N, ...)) -> (N,) losses
 LossFn = Callable[[Dict, Dict], torch.Tensor]
@@ -53,7 +53,7 @@ replicate = aggregation.broadcast
 
 
 def make_fed_step(loss_fn: LossFn, plan: Dict, num_layers: int,
-                  fed_cfg: FedPairingConfig):
+                  fed_cfg: FedPairingConfig, unread: Collection[str] = ()):
     """Build the per-batch FedPairing step.
 
     Returns ``step(client_params, batches, partner, lengths, agg_w)`` ->
@@ -68,6 +68,10 @@ def make_fed_step(loss_fn: LossFn, plan: Dict, num_layers: int,
     * lengths       — (N,) propagation lengths L_i,
     * agg_w         — (N,) aggregation weights a_i.
     ``loss_fn`` takes the stacked trees and returns the (N,) flow losses.
+    ``unread`` names the leaves (``a/b/c`` paths) that the loss never reads
+    by design, as ``registry.unread_leaves`` gives them: their gradient is
+    zero, as under the reference's grad.  Any other leaf without a gradient
+    raises.
     """
 
     def _bmask(masks, a):
@@ -96,12 +100,16 @@ def make_fed_step(loss_fn: LossFn, plan: Dict, num_layers: int,
 
         with torch.no_grad():
             mixed = tree_map(mix, client_params, plan)
-        leaves = [t.requires_grad_() for t in tree_leaves(mixed)]
+        items = [(path, t.requires_grad_()) for path, t in tree_items(mixed)]
         losses = loss_fn(mixed, batches)
-        # a leaf the loss never reads (the hybrid's shared ``attn/wo``) has
-        # a zero gradient, as under the reference's grad
-        g_mix = tree_unflatten(mixed, torch.autograd.grad(
-            losses.sum(), leaves, allow_unused=True, materialize_grads=True))
+        grads = torch.autograd.grad(losses.sum(), [t for _, t in items],
+                                    allow_unused=True)
+        missing = [path for (path, _), g in zip(items, grads)
+                   if g is None and path not in unread]
+        if missing:
+            raise RuntimeError(f"fed step: the loss reads no {missing}")
+        g_mix = tree_unflatten(mixed, [torch.zeros_like(t) if g is None else g
+                                       for (_, t), g in zip(items, grads)])
 
         if fed_cfg.aggregation == "paper":
             a_own, a_in = agg_w, agg_w[partner]

@@ -171,13 +171,13 @@ class _VmappedEngine:
     """The parameter-mix core with the client axis written out."""
 
     def __init__(self, cfg, rc: RoundConfig, n: int, gparams: Dict,
-                 loss_fn: Callable):
+                 loss_fn: Callable, unread: Sequence[str] = ()):
         plan = splitting.split_plan(cfg, gparams)
         fed_cfg = fedpair.FedPairingConfig(
             lr=rc.lr / n, overlap_boost=rc.overlap_boost,
             aggregation=rc.aggregation, donate=rc.donate)
         self._step = fedpair.make_fed_step(loss_fn, plan, cfg.num_layers,
-                                           fed_cfg)
+                                           fed_cfg, unread=unread)
         self.cached_steps = 1
 
     def step(self, params, batch, plan: RoundPlan, agg_w):
@@ -229,7 +229,8 @@ class RoundDriver:
             if (rc.cut_cache and self._cost_driven) else None
         self.agg_policy = aggregation.get_aggregation_policy(rc.agg_policy)
         self._engine = _VmappedEngine(cfg, rc, self.n, self._gparams,
-                                      self.loss_fn)
+                                      self.loss_fn,
+                                      unread=registry.unread_leaves(cfg))
 
     # -- state ------------------------------------------------------------
 

@@ -79,7 +79,8 @@ def wkv6_effective_chunk(chunk: int, impl: Optional[str] = None) -> int:
     64-step tile).  The CUDA kernel runs the recurrence step by step and
     has no minimum chunk, so both impls honour the request: it is the
     plain version's chunk on the CPU and the backward recompute's chunk
-    on the card."""
+    on the card.  Kept only for API parity with the reference: nothing in
+    the port calls it."""
     if impl is not None and impl not in _VALID:
         raise ValueError(f"impl must be one of {_VALID}, got {impl!r}")
     return chunk

@@ -28,6 +28,11 @@ from repro_torch.models import common, mamba2, transformer
 from repro_torch.tree import tree_map
 
 
+# the per-invocation ``out_proj`` takes the place of the shared attention's
+# own output projection, which the forward never reads
+UNREAD_LEAVES = ("shared/attn/wo",)
+
+
 def num_invocations(cfg: ArchConfig) -> int:
     return (cfg.num_layers + cfg.shared_attn_every - 1) \
         // cfg.shared_attn_every

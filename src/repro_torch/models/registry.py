@@ -7,6 +7,7 @@ SSM (rwkv6) and hybrid (zamba2).  The others raise and name ROADMAP A.12.
 * ``loss_fn(params, batch, cfg, gates)``         -> (loss, metrics)
 * ``boundary_profile(cfg, seq_len)``            -> split payload profile
 * ``count_params_analytical(cfg)``              -> int
+* ``unread_leaves(cfg)``                        -> leaves no forward reads
 
 The param tree has the reference's keys and its stacked leading layer
 axis, so a JAX tree loads leaf for leaf (``checkpoint.convert``).  Every
@@ -63,6 +64,12 @@ def init_params(cfg: ArchConfig, seed: Optional[int] = 0,
                       else transformer.block_stack_init)
         p["blocks"] = stack_init(gen, cfg, cfg.num_layers, dtype, where)
     return p if where == device else tree_map(lambda a: a.to(device), p)
+
+
+def unread_leaves(cfg: ArchConfig) -> Tuple[str, ...]:
+    """Paths of the leaves ``init_params`` makes that the forward never
+    reads (the reference's grad gives them zeros)."""
+    return hybrid.UNREAD_LEAVES if cfg.family == ArchFamily.HYBRID else ()
 
 
 # ---------------------------------------------------------------------------

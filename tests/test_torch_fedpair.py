@@ -90,7 +90,8 @@ def test_step_matches_reference(arch, n, aggregation, boost):
         lambda p, b: registry.loss_fn(p, b, tcfg)[0],
         splitting.split_plan(tcfg, tcp), tcfg.num_layers,
         fedpair.FedPairingConfig(lr=0.05, overlap_boost=boost,
-                                 aggregation=aggregation, donate=False))
+                                 aggregation=aggregation, donate=False),
+        unread=registry.unread_leaves(tcfg))
     tnew, tm = tstep(tcp, {k: torch.tensor(v) for k, v in batches.items()},
                      partner, lengths, agg_w)
 
@@ -141,6 +142,31 @@ def test_self_pair_is_local_sgd():
         np.testing.assert_allclose(got[path][2],
                                    (p - 0.05 * gr).detach().numpy(),
                                    err_msg=path, **TOL)
+
+
+def test_unread_leaf_must_be_declared():
+    """A leaf the loss does not read raises unless it is declared unread;
+    declared, it gets a zero gradient and keeps its value."""
+    partner, lengths = CASES[(4, 4)]
+    g, flat, batches = _fleet(4)
+    params = params_from_jax(flat, device="cpu")
+    assert registry.unread_leaves(TCFG) == ()
+    assert registry.unread_leaves(get_smoke_config("zamba2-1.2b")) == (
+        "shared/attn/wo",)
+
+    def loss(p, b):                     # never reads the final norm
+        return registry.loss_fn({**p, "ln_f": p["ln_f"].detach()}, b,
+                                TCFG)[0]
+
+    tb = {k: torch.tensor(v) for k, v in batches.items()}
+    args = (tb, partner, lengths, np.full(4, 0.5, np.float32))
+    cfg = fedpair.FedPairingConfig(lr=0.05, donate=False)
+    plan = splitting.split_plan(TCFG, params)
+    with pytest.raises(RuntimeError, match="ln_f"):
+        fedpair.make_fed_step(loss, plan, TCFG.num_layers, cfg)(params, *args)
+    new, _ = fedpair.make_fed_step(loss, plan, TCFG.num_layers, cfg,
+                                   unread=("ln_f",))(params, *args)
+    np.testing.assert_array_equal(new["ln_f"].numpy(), flat["ln_f"])
 
 
 def _unflatten_like(tree, flat):
